@@ -23,17 +23,18 @@ import sys
 from dataclasses import dataclass
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "tests"))
 
 import numpy as np
 
 import jax
 import jax.numpy as jnp
 
-from tpu_ofdm.config import OfdmConfig
-from tpu_ofdm.modem.rx import rx_block
-from tpu_ofdm.modem.tx import tx_frame
-from tpu_ofdm.ops.channel import channel_model
-from tpu_ofdm.utils.device_io import jit_safe, to_host
+from ofdm_jax.config import OfdmConfig
+from ofdm_jax.modem.rx import rx_block
+from ofdm_jax.modem.tx import tx_frame
+from ofdm_jax.ops.channel import channel_model
+from ofdm_jax.utils.device_io import jit_safe, to_host
 
 
 @dataclass(frozen=True)
@@ -72,7 +73,7 @@ def baseline_configs() -> list[CurveConfig]:
 def measure_point(cc: CurveConfig, snr_db: float, n_trials: int,
                   payload: bytes, rx_fn=None, golden: bool = True):
     """One SNR point: returns dict with evm/ber/fer (+ golden_evm)."""
-    import tests.golden.golden_ofdm as G
+    from golden import golden_ofdm as G
 
     spec = cc.cfg.spec
     cap = cc.cfg.max_payload_bytes - 4
@@ -174,9 +175,8 @@ def to_markdown(rows: dict) -> str:
 def main():
     import pathlib
 
-    # EVM/BER curves are a correctness measurement; run on CPU so the
-    # channel/golden numpy path needs no device-io packing
-    jax.config.update("jax_platforms", "cpu")
+    # EVM/BER curves are a correctness measurement: they run on whatever
+    # backend is default (JAX_PLATFORMS=cpu for the committed artifact)
     rows = run_curves(n_trials=16)
     out = {"suite": "evm_ber_curves", "backend": jax.default_backend(),
            "rows": rows}

@@ -2,9 +2,9 @@
 
 Same protocol as bench.py (staged blocks, executor push, readback-forced
 timing, every-frame-recovered assert) swept over block sizes, to document
-WHY the headline runs at 2^25: the chain has a ~1.3 ms fixed per-step cost
-on this backend, so throughput rises with block size until the staged-input
-footprint and step latency stop paying (bench.py head comment).
+how throughput moves with block size: a fixed per-step cost favours large
+blocks until the staged-input footprint and step latency stop paying.  The
+GPU's curve is not measured yet.
 
 Usage: python -m bench.headline_sweep [logS ...]   (default 22 24 25)
 """
@@ -20,14 +20,14 @@ import jax
 import jax.numpy as jnp
 
 from bench.util import Report
-from tpu_ofdm.config import OfdmConfig, StreamConfig
-from tpu_ofdm.modem.rx_stream import history_len, rx_stream_block
-from tpu_ofdm.stream.executor import StreamExecutor
-from tpu_ofdm.utils.device_io import maybe_encode
+from ofdm_jax.config import OfdmConfig, StreamConfig
+from ofdm_jax.modem.rx_stream import history_len, rx_stream_block
+from ofdm_jax.stream.executor import StreamExecutor
+from ofdm_jax.utils.device_io import maybe_encode
 
 
 def measure(logS: int) -> dict:
-    import tests.golden.golden_ofdm as G
+    from golden import golden_ofdm as G
 
     frames_per_block = 56 * (1 << max(0, logS - 22))
     K = max(64, 2 * frames_per_block - frames_per_block // 2)

@@ -9,8 +9,8 @@ memory-bound DSP kernels here = the stream-copy bandwidth.
 Traffic accounting: `bytes` counts the minimal algorithmic HBM traffic
 (inputs read once + outputs written once).  A kernel at fraction ~1.0 is
 making one fused pass; fractions far below 1.0 indicate extra materialized
-intermediates or serialized passes (e.g. cumsum's log-shift lowering) --
-the signal to reach for Pallas (SURVEY.md §7 M5).
+intermediates or serialized passes -- the signal to look at the trace
+before reaching for a kernel (SURVEY.md §7 M5).
 """
 
 from __future__ import annotations
@@ -21,11 +21,11 @@ import jax
 import jax.numpy as jnp
 
 from bench.util import Report, bench
-from tpu_ofdm.config import OfdmConfig
-from tpu_ofdm.kernels import fft as kfft
-from tpu_ofdm.ops import sync as ksync
-from tpu_ofdm.spectrum import channelizer as kchan
-from tpu_ofdm.spectrum import psd as kpsd
+from ofdm_jax.config import OfdmConfig
+from ofdm_jax.kernels import fft as kfft
+from ofdm_jax.ops import sync as ksync
+from ofdm_jax.spectrum import channelizer as kchan
+from ofdm_jax.spectrum import psd as kpsd
 
 C64 = 8      # bytes per complex64 (travels as 2x f32 on the wire)
 F32 = 4
@@ -70,21 +70,12 @@ def bench_fft(report: Report, membw: float, mm_tflops: float):
     carry IS the transform output), so frac_membw is exact, unlike the
     generic bench() whose perturb/reduce machinery adds up to ~1.5 passes
     of ambiguity on memory-bound rows.  Each iteration times TWO
-    transforms; sec is per transform.
-
-    Roofline note (measured 2026-08-21, five formulations): fft64 ~0.90 and
-    fft256 ~0.67 of stream-copy are at/near saturation; fft1024/fft4096
-    ~0.43 is STRUCTURAL for natural-order four-step on this chip -- the
-    balanced and 128-biased splits and transpose-free dot_general forms all
-    measured 0.37-0.44, and a fused Pallas four-step must either pay a
-    Z-order->natural reorder pass (bound ~0.50) or fold the reorder into
-    the final matmul at n1 x the MXU flops (bound ~0.37).  The 1024-bin
-    SPECTRUM path does not ride this: it uses the fused PSD kernel."""
+    transforms; sec is per transform."""
     import time
 
     import jax.numpy as jnp
 
-    from tpu_ofdm.utils.device_io import maybe_encode, tpu_safe
+    from ofdm_jax.utils.device_io import maybe_encode, packed_io
 
     for batch, n in [(1 << 17, 64), (1 << 15, 256), (1 << 13, 1024),
                      (1 << 11, 4096)]:
@@ -97,7 +88,7 @@ def bench_fft(report: Report, membw: float, mm_tflops: float):
             y = jax.lax.fori_loop(0, reps, body, a)
             return jnp.sum(jnp.real(y[:1, :8]))
 
-        jfn = jax.jit(tpu_safe(repeated))
+        jfn = jax.jit(packed_io(repeated))
         d = jax.device_put(maybe_encode(x))
         jax.device_get(jfn(d))
         sec = float("inf")
@@ -116,7 +107,7 @@ def bench_fft(report: Report, membw: float, mm_tflops: float):
             gbps=bytes_ / sec / 1e9,
             frac_membw=bytes_ / sec / 1e9 / membw,
             tflops=flops / sec / 1e12,
-            frac_mxu=flops / sec / 1e12 / mm_tflops,
+            frac_matmul=flops / sec / 1e12 / mm_tflops,
             protocol="self-chained ifft(fft(.)), exact accounting",
         )
 
@@ -128,15 +119,16 @@ def bench_sync(report: Report, membw: float):
     n = 1 << 22
     x = _noise((n,), 3)
 
-    # THE production detect stage: fused single-pass Pallas row summaries
-    # (what rx_stream/detect_frames actually run on TPU)
-    from tpu_ofdm.kernels.sc_detect import sc_detect_rows
+    # THE production detect stage: per-row summaries on the path this
+    # backend runs (the kernels/detect.py kernels on a GPU)
+    from ofdm_jax.utils.device_io import PackedComplex
 
-    L = spec.fft_len // 2
-    sec = bench(lambda a: sc_detect_rows(a, L, spec.cp_len), (x,))
-    bytes_ = n * 8  # kernel design: 8 B/sample (two f32 planes in, rows ~0)
+    sec = bench(lambda a: ksync.detect_rows(
+        spec, PackedComplex(jnp.real(a), jnp.imag(a))), (x,))
+    # two f32 planes in, one f32 metric plane written and read back
+    bytes_ = n * 16
     report.add(
-        kernel="sc_detect_rows", n=n, sec=sec, msamp_s=n / sec / 1e6,
+        kernel="detect_rows", n=n, sec=sec, msamp_s=n / sec / 1e6,
         gbps=bytes_ / sec / 1e9, frac_membw=bytes_ / sec / 1e9 / membw,
     )
 
@@ -148,7 +140,7 @@ def bench_sync(report: Report, membw: float):
         msamp_s=n / sec / 1e6, gbps=bytes_ / sec / 1e9,
         frac_membw=bytes_ / sec / 1e9 / membw,
         note="diagnostic API path (materializes full M/P/R streams + local "
-             "energy gate); production detection rides sc_detect_rows",
+             "energy gate); production detection rides detect_rows",
     )
 
     sec = bench(lambda a: ksync.detect_frames(spec, a, 8), (x,))
@@ -156,29 +148,35 @@ def bench_sync(report: Report, membw: float):
         kernel="detect_frames", n=n, sec=sec, msamp_s=n / sec / 1e6,
     )
 
-    # DEMOTED: standalone moving_sum no longer sits on any shipped hot path
-    # -- every production sliding window is fused into its consumer kernel
-    # (sc_detect banded windows, sc_metric, psd) -- so its cumsum+lead-lag
-    # formulation (one extra materialized pass, ~25% membw at the 8B/sample
-    # accounting) is retained only as the CPU-fallback/utility form
-    # (ops.sync fallbacks, stream.block moving_average).
+    # K = 480 slot windows of max_frame_len (the receiver's slot gather)
+    from ofdm_jax.modem.rx import gather_windows
+
+    F = spec.max_frame_len
+    starts = np.sort(np.random.RandomState(7).randint(0, n - F, 480)
+                     ).astype(np.int32)
+    sec = bench(lambda a, s: gather_windows(
+        jnp.real(a), jnp.imag(a), s, F), (x, starts))
+    bytes_ = 480 * F * C64 * 2
+    report.add(
+        kernel="slot_gather480", n=n, sec=sec, gbps=bytes_ / sec / 1e9,
+        frac_membw=bytes_ / sec / 1e9 / membw,
+    )
+
+    # standalone window sum (lax.reduce_window): the plain detect path's
+    # building block and the SyncMetric API's
     sec = bench(lambda a: ksync.moving_sum(a, 32), (np.abs(_noise((n, ), 4)).astype(np.float32),))
     bytes_ = n * (F32 * 2)
     report.add(
-        kernel="moving_sum_w32_fallback_util", n=n, sec=sec,
+        kernel="moving_sum_w32", n=n, sec=sec,
         msamp_s=n / sec / 1e6,
         gbps=bytes_ / sec / 1e9, frac_membw=bytes_ / sec / 1e9 / membw,
-        note="superseded on hot paths by fused windows in sc_detect/"
-             "sc_metric/psd; utility+fallback only",
     )
 
 
 def bench_channelizer(report: Report, membw: float):
-    """THE production path: channelize_stream with its tail carry (fused
-    Pallas on TPU), at 64/256/512 channels (512 = BASELINE config 5), plus
-    one demoted unfused-XLA row for comparison (VERDICT r3 missing #2: the
-    old rows benched zero-history kchan.channelize, which the streaming
-    pipeline does not run)."""
+    """THE production path: channelize_stream with its tail carry, at
+    64/256/512 channels (512 = BASELINE config 5), plus the one-shot
+    zero-history channelize for comparison."""
     n = 1 << 23
     for n_chan in (64, 256, 512):
         x = _noise((n,), 5)
@@ -202,15 +200,14 @@ def bench_channelizer(report: Report, membw: float):
     sec = bench(lambda a: kchan.channelize(a, 64, taps), (x,))
     bytes_ = n * C64 * 2
     report.add(
-        kernel="pfb_channelizer64_unfused_xla", n=n, sec=sec,
+        kernel="pfb_channelizer64_oneshot", n=n, sec=sec,
         msamp_s=n / sec / 1e6, gbps=bytes_ / sec / 1e9,
         frac_membw=bytes_ / sec / 1e9 / membw,
     )
 
 
 def bench_psd(report: Report, membw: float):
-    """psd_frames as shipped (fused Pallas kernel on TPU for these sizes)
-    plus the demoted unfused-XLA chain for comparison."""
+    """psd_frames as shipped (the XLA chain), 1-D and batched input."""
     n = 1 << 22
     for fft_len in (256, 1024):
         x = _noise((n,), 6)
@@ -224,13 +221,13 @@ def bench_psd(report: Report, membw: float):
 
     fft_len = 1024
     x = _noise((n,), 6)
-    # 2-D input skips the fused path -> the old five-op XLA chain
+    # the same chain over a (1, n) batch
     sec = bench(
         lambda a: kpsd.psd_frames(a.reshape(1, -1), fft_len)[0], (x,)
     )
     bytes_ = n * (C64 + F32)
     report.add(
-        kernel=f"psd_frames{fft_len}_unfused_xla", n=n, sec=sec,
+        kernel=f"psd_frames{fft_len}_batched", n=n, sec=sec,
         msamp_s=n / sec / 1e6,
         gbps=bytes_ / sec / 1e9, frac_membw=bytes_ / sec / 1e9 / membw,
     )

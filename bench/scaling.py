@@ -11,11 +11,11 @@ halo over the flattened device order) -> GSPMD all_to_all reshard ->
 Correctness is asserted (every injected frame recovered exactly once, on
 the right channel, at the right position); wall-clock on the CPU host
 platform is INDICATIVE ONLY -- all virtual devices share one host's cores,
-so perfect weak scaling shows as ~flat per-device time.  The real-chip
-throughput rows live in bench/results_*.json from bench.py /
-bench/kernels.py.
+so perfect weak scaling shows as ~flat per-device time.  On four GPUs
+the same program runs meshes up to 2x2; chip_smoke.py --four-cards is the
+checked four-card path.
 
-Usage: python bench/scaling.py
+Usage: JAX_PLATFORMS=cpu python bench/scaling.py   (virtual 8-device mesh)
 """
 
 from __future__ import annotations
@@ -39,15 +39,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_platforms", "cpu")
-
-from tpu_ofdm.config import OfdmConfig  # noqa: E402
-from tpu_ofdm.modem.rx_stream import history_len  # noqa: E402
-from tpu_ofdm.modem.tx import tx_frame  # noqa: E402
-from tpu_ofdm.shard.mesh import make_mesh  # noqa: E402
-from tpu_ofdm.shard.rx import collect_sharded_frames  # noqa: E402
-from tpu_ofdm.shard.wideband import sharded_wideband_capture_fn  # noqa: E402
-from tpu_ofdm.spectrum.channelizer import (  # noqa: E402
+from ofdm_jax.config import OfdmConfig  # noqa: E402
+from ofdm_jax.modem.rx_stream import history_len  # noqa: E402
+from ofdm_jax.modem.tx import tx_frame  # noqa: E402
+from ofdm_jax.shard.mesh import make_mesh  # noqa: E402
+from ofdm_jax.shard.rx import collect_sharded_frames  # noqa: E402
+from ofdm_jax.shard.wideband import sharded_wideband_capture_fn  # noqa: E402
+from ofdm_jax.spectrum.channelizer import (  # noqa: E402
     lowpass_taps,
     synthesize_bursts,
 )
@@ -124,7 +122,7 @@ def run(per_dev_wideband: int = 1 << 20,
         }
         H = history_len(spec)
         c_local = N_CHAN // n_c
-        from tpu_ofdm.spectrum.channelizer import stream_tail_len
+        from ofdm_jax.spectrum.channelizer import stream_tail_len
         halo_bytes = 8 * (stream_tail_len(N_CHAN, taps) + H * c_local)
         res = jax.block_until_ready(fn(xg))  # compile + correctness run
         frames = collect_sharded_frames(res, S, spec, n_t)
@@ -162,6 +160,7 @@ def main():
     rows = run()
     out = {
         "suite": "weak_scaling_config5_virtual_cpu",
+        "backend": jax.default_backend(),
         "note": "BASELINE config 5 shape: 512-channel wideband capture, "
                 "(channel x time) mesh, sharded channelizer + demod; "
                 "virtual 8-device CPU mesh.  Weak-scaling evidence here is "

@@ -5,7 +5,7 @@ BASELINE.json config 4: "64-ch polyphase channelizer feeding parallel OFDM
 demods (wideband spectrum probe)".  Frames ride a few channels; every
 injected frame must come back valid (same no-dropped-work rule as bench.py).
 
-Run on the TPU: python bench/wideband.py
+Run on the card: python bench/wideband.py
 """
 
 from __future__ import annotations
@@ -16,16 +16,17 @@ import sys
 import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "tests"))
 
 import numpy as np
 
 import jax
 import jax.numpy as jnp
 
-from tpu_ofdm.config import OfdmConfig, StreamConfig
-from tpu_ofdm.modem.wideband import wideband_rx_block
-from tpu_ofdm.stream.executor import StreamExecutor
-from tpu_ofdm.utils.device_io import maybe_encode
+from ofdm_jax.config import OfdmConfig, StreamConfig
+from ofdm_jax.modem.wideband import wideband_rx_block
+from ofdm_jax.stream.executor import StreamExecutor
+from ofdm_jax.utils.device_io import maybe_encode
 
 
 def make_wideband_block(spec, n_chan: int, block: int, frame, chans=(3, 17, 40)):
@@ -35,7 +36,7 @@ def make_wideband_block(spec, n_chan: int, block: int, frame, chans=(3, 17, 40))
     channelizer prototype itself) -- bare zero-stuffing replicates the frame
     spectrum at every channel frequency, and each image decodes (measured:
     64 detections/block from 3 injected frames)."""
-    from tpu_ofdm.spectrum.channelizer import lowpass_taps
+    from ofdm_jax.spectrum.channelizer import lowpass_taps
 
     rng = np.random.RandomState(0)
     x = (rng.randn(block) + 1j * rng.randn(block)).astype(np.complex64) * 0.01
@@ -58,7 +59,7 @@ def make_wideband_block(spec, n_chan: int, block: int, frame, chans=(3, 17, 40))
 
 
 def main():
-    import tests.golden.golden_ofdm as G
+    from golden import golden_ofdm as G
 
     cfg = OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk",
                      max_payload_bytes=64)

@@ -1,6 +1,6 @@
 """Frozen golden-model OFDM chain (pure numpy).
 
-This module is the correctness oracle for the TPU framework, substituting for
+This module is the correctness oracle for the JAX framework, substituting for
 the absent reference tree (see SURVEY.md §0/§4: /root/reference is empty, so
 golden vectors cannot be generated by running GNU Radio; instead this frozen
 textbook implementation of the same signal chain the reference builds --

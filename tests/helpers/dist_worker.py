@@ -28,7 +28,7 @@ pid = int(sys.argv[1])
 nproc = int(sys.argv[2])
 port = sys.argv[3]
 
-from tpu_ofdm.shard import distributed as D  # noqa: E402
+from ofdm_jax.shard import distributed as D  # noqa: E402
 
 D.initialize(
     coordinator_address=f"localhost:{port}",
@@ -47,10 +47,10 @@ got = D.broadcast_control(msg)
 assert got == {"cmd": "retune", "freq": 146.52e6, "gain": 20}, got
 
 # --- sharded RX capture across processes ------------------------------------
-from tpu_ofdm.config import OfdmConfig  # noqa: E402
-from tpu_ofdm.modem.tx import pack_stream, tx_frames  # noqa: E402
-from tpu_ofdm.modem.rx_stream import history_len  # noqa: E402
-from tpu_ofdm.shard.rx import (  # noqa: E402
+from ofdm_jax.config import OfdmConfig  # noqa: E402
+from ofdm_jax.modem.tx import pack_stream, tx_frames  # noqa: E402
+from ofdm_jax.modem.rx_stream import history_len  # noqa: E402
+from ofdm_jax.shard.rx import (  # noqa: E402
     collect_sharded_frames,
     sharded_rx_capture_fn,
 )
@@ -96,7 +96,7 @@ chans = {f["channel"] for f in ok}
 assert chans == {0, 1}, chans
 
 # --- psum metric aggregation over the whole mesh ----------------------------
-from tpu_ofdm.shard.distributed import LinkCounters  # noqa: E402
+from ofdm_jax.shard.distributed import LinkCounters  # noqa: E402
 
 n_dev = len(jax.devices())
 ones = np.ones(n_dev, np.float32)

@@ -10,9 +10,9 @@ import threading
 import numpy as np
 import pytest
 
-from tpu_ofdm.apps import ofdm_chat, ofdm_loopback, spectrum_analyzer, spectrum_logger, wideband_scanner
-from tpu_ofdm.io import file_sink
-from tpu_ofdm.io.transport import SpectrumSubscriber
+from ofdm_jax.apps import ofdm_chat, ofdm_loopback, spectrum_analyzer, spectrum_logger, wideband_scanner
+from ofdm_jax.io import file_sink
+from ofdm_jax.io.transport import SpectrumSubscriber
 
 
 class TestOfdmLoopback:
@@ -142,7 +142,7 @@ class TestWidebandScanner:
 
 class TestOfdmChat:
     def test_send_listen_over_udp(self, capsys):
-        from tpu_ofdm.io.pdu import UdpSampleLink
+        from ofdm_jax.io.pdu import UdpSampleLink
 
         probe = UdpSampleLink(0)
         port = probe.port

@@ -31,8 +31,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tpu_ofdm.config import OfdmConfig
-from tpu_ofdm.ops import sync
+from ofdm_jax.config import OfdmConfig
+from ofdm_jax.ops import sync
 
 import tests.golden.golden_ofdm as G
 

@@ -1,8 +1,7 @@
 """Boundary-packing machinery (utils.device_io) under forced packing.
 
-On the target TPU backend complex64/bool cannot be program inputs or
-outputs; these tests force packing ON under CPU to validate the wrappers
-end-to-end, including the streaming executor path.
+Packing is off by default; these tests force it ON under CPU to validate
+the wrappers end-to-end, including the streaming executor path.
 """
 
 import numpy as np
@@ -10,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tpu_ofdm.utils import device_io as dio
+from ofdm_jax.utils import device_io as dio
 
 
 @pytest.fixture(autouse=True)
@@ -41,8 +40,8 @@ def test_jit_safe_complex_fn():
 
 
 def test_executor_packed_stream():
-    from tpu_ofdm.stream.block import fir_filter
-    from tpu_ofdm.stream.executor import StreamExecutor
+    from ofdm_jax.stream.block import fir_filter
+    from ofdm_jax.stream.executor import StreamExecutor
 
     taps = (np.arange(5) + 1.0).astype(np.complex64)
     ex = StreamExecutor(fir_filter(taps), block_size=32)
@@ -56,10 +55,10 @@ def test_executor_packed_stream():
 
 def test_rx_stream_packed():
     """Full streaming RX with packed boundaries == unpacked results."""
-    from tpu_ofdm.config import OfdmConfig, StreamConfig
-    from tpu_ofdm.modem.rx_stream import collect_frames, history_len, rx_stream_block
-    from tpu_ofdm.modem.tx import tx_frames
-    from tpu_ofdm.stream.executor import StreamExecutor
+    from ofdm_jax.config import OfdmConfig, StreamConfig
+    from ofdm_jax.modem.rx_stream import collect_frames, history_len, rx_stream_block
+    from ofdm_jax.modem.tx import tx_frames
+    from ofdm_jax.stream.executor import StreamExecutor
 
     cfg = OfdmConfig(modulation="qpsk", max_payload_bytes=64)
     spec = cfg.spec

@@ -20,8 +20,8 @@ import pytest
 
 import jax
 
-from tpu_ofdm.shard import distributed as D
-from tpu_ofdm.shard.mesh import make_mesh
+from ofdm_jax.shard import distributed as D
+from ofdm_jax.shard.mesh import make_mesh
 
 
 @pytest.fixture(scope="module")
@@ -58,9 +58,9 @@ def test_psum_tree_totals(mesh8):
 
 
 def test_counters_from_rx_roundtrip():
-    from tpu_ofdm.config import OfdmConfig
-    from tpu_ofdm.modem.rx import rx_block
-    from tpu_ofdm.modem.tx import pack_stream, tx_frames
+    from ofdm_jax.config import OfdmConfig
+    from ofdm_jax.modem.rx import rx_block
+    from ofdm_jax.modem.tx import pack_stream, tx_frames
 
     cfg = OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk",
                      max_payload_bytes=32)

@@ -3,7 +3,7 @@
 VERDICT r3/r4 both flagged docstrings whose measured-throughput claims
 contradicted the current bench artifacts (a "7.0 Gsamp/s" comment surviving
 two rounds after the kernel hit 13).  Rule enforced here: a throughput /
-bandwidth figure may appear in tpu_ofdm/ source ONLY as a dated
+bandwidth figure may appear in ofdm_jax/ source ONLY as a dated
 measurement snapshot ("measured 2026-08-18: ...", i.e. explicitly
 historical provenance); undated numbers read as current claims and must
 live in bench/results_*.json / BASELINE.md instead.
@@ -17,7 +17,7 @@ UNIT = re.compile(r"\d[\d.]*\s*x?\s*(?:G|M)samp/s|\d[\d.]*\s*GB/s"
 DATE = re.compile(r"20\d\d-\d\d(-\d\d)?")
 CONTEXT = 3  # a date within this many preceding lines blesses the figure
 
-PKG = pathlib.Path(__file__).resolve().parent.parent / "tpu_ofdm"
+PKG = pathlib.Path(__file__).resolve().parent.parent / "ofdm_jax"
 
 
 def test_no_undated_perf_figures_in_source():

@@ -1,7 +1,7 @@
 """Fault injection, stall detection, deterministic replay.
 
 The reference has no failure-detection/recovery machinery (SURVEY.md §5);
-these tests pin down the TPU build's story: perturbed time-block streams
+these tests pin down this build's story: perturbed time-block streams
 degrade gracefully (only frames touching the fault are lost), a stalled
 pipeline is detected from its progress counter, and the jitted executor is
 bit-deterministic under replay (the race-detection answer: there is nothing
@@ -15,11 +15,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tpu_ofdm.config import OfdmConfig, StreamConfig
-from tpu_ofdm.modem.rx_stream import collect_frames, history_len, rx_stream_block
-from tpu_ofdm.modem.tx import tx_frames
-from tpu_ofdm.stream.executor import StreamExecutor, pad_to_blocks
-from tpu_ofdm.utils.faults import Watchdog, inject_faults
+from ofdm_jax.config import OfdmConfig, StreamConfig
+from ofdm_jax.modem.rx_stream import collect_frames, history_len, rx_stream_block
+from ofdm_jax.modem.tx import tx_frames
+from ofdm_jax.stream.executor import StreamExecutor, pad_to_blocks
+from ofdm_jax.utils.faults import Watchdog, inject_faults
 
 BLOCK = 2048
 

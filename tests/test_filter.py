@@ -9,13 +9,13 @@ full-rate-convolve identity computed in numpy.
 import numpy as np
 import pytest
 
-from tpu_ofdm.ops import firdes
-from tpu_ofdm.stream.block import (
+from ofdm_jax.ops import firdes
+from ofdm_jax.stream.block import (
     fir_filter,
     interpolating_fir,
     rational_resampler,
 )
-from tpu_ofdm.stream.executor import StreamExecutor
+from ofdm_jax.stream.executor import StreamExecutor
 
 
 def _mag_db(taps, fs, freqs):
@@ -146,9 +146,9 @@ def test_decimating_fir_matches_numpy():
 
 
 def test_long_fir_matmul_path():
-    """K >= 33 takes the overlap-save frame-matmul (MXU) core; must agree
+    """K >= 33 takes the overlap-save frame-matmul core; must agree
     with numpy convolution and with the shifted-add core."""
-    from tpu_ofdm.stream.block import fir_ext
+    from ofdm_jax.stream.block import fir_ext
     import jax.numpy as jnp
 
     rng = np.random.RandomState(3)

@@ -1,6 +1,6 @@
 """Flowgraph topology + declarative spec (grc) tests.
 
-The TPU-side counterpart of the reference runtime's flowgraph validation
+The JAX counterpart of the reference runtime's flowgraph validation
 (flat_flowgraph / hier_block2 / io_signature) and of grcc compiling .grc
 descriptors into runnable top blocks.
 """
@@ -10,9 +10,9 @@ import json
 import numpy as np
 import pytest
 
-from tpu_ofdm import grc
-from tpu_ofdm.ops import firdes
-from tpu_ofdm.stream.block import (
+from ofdm_jax import grc
+from ofdm_jax.ops import firdes
+from ofdm_jax.stream.block import (
     Block,
     chain,
     complex_to_mag_squared,
@@ -22,8 +22,8 @@ from tpu_ofdm.stream.block import (
     single_pole_iir,
     stateless,
 )
-from tpu_ofdm.stream.executor import StreamExecutor
-from tpu_ofdm.stream.graph import Flowgraph, FlowgraphError
+from ofdm_jax.stream.executor import StreamExecutor
+from ofdm_jax.stream.graph import Flowgraph, FlowgraphError
 
 
 def _run(block, x, block_size=256):
@@ -198,8 +198,8 @@ def test_named_in_port_rejected():
     """Named ports select a SOURCE output field; a string in-port on the
     destination is a spec error and must fail at connect()/add_input()
     time with a direct message (ADVICE r3), not later as 'not dense'."""
-    from tpu_ofdm.stream.graph import Flowgraph
-    from tpu_ofdm.stream.block import multiply_const
+    from ofdm_jax.stream.graph import Flowgraph
+    from ofdm_jax.stream.block import multiply_const
 
     fg = Flowgraph()
     fg.add("a", multiply_const(2.0))
@@ -284,7 +284,7 @@ def test_loopback_example_channel_realizes_requested_snr():
 
 
 def test_run_flowgraph_app(tmp_path, capsys):
-    from tpu_ofdm.apps import run_flowgraph
+    from ofdm_jax.apps import run_flowgraph
 
     p = tmp_path / "g.json"
     p.write_text(json.dumps(SPEC))

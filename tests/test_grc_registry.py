@@ -17,11 +17,11 @@ import os
 import numpy as np
 import pytest
 
-from tpu_ofdm import grc
-from tpu_ofdm.config import OfdmConfig
-from tpu_ofdm.modem.rx_stream import collect_frames, history_len
-from tpu_ofdm.modem.tx_stream import empty_tx_in, queue_tx_in
-from tpu_ofdm.stream.executor import StreamExecutor
+from ofdm_jax import grc
+from ofdm_jax.config import OfdmConfig
+from ofdm_jax.modem.rx_stream import collect_frames, history_len
+from ofdm_jax.modem.tx_stream import empty_tx_in, queue_tx_in
+from ofdm_jax.stream.executor import StreamExecutor
 
 BS = 4096  # stream block size used by every case
 

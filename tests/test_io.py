@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from tpu_ofdm.io import (
+from ofdm_jax.io import (
     DeviceFeed,
     Pdu,
     PduQueue,

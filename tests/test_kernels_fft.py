@@ -1,11 +1,11 @@
-"""MXU matmul-DFT / four-step FFT kernel vs numpy.fft (SURVEY.md §7 dec. 4)."""
+"""Matmul-DFT / four-step FFT kernel vs numpy.fft (SURVEY.md §7 dec. 4)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from tpu_ofdm.kernels import fft as kfft
+from ofdm_jax.kernels import fft as kfft
 
 
 @pytest.mark.parametrize("n", [8, 64, 128, 256, 512, 1024, 4096])

@@ -2,7 +2,7 @@
 
 import time
 
-from tpu_ofdm.utils.metrics import Ewma, LinkMetrics, PerfCounters
+from ofdm_jax.utils.metrics import Ewma, LinkMetrics, PerfCounters
 
 
 def test_ewma():

@@ -1,6 +1,6 @@
 """Frame-level modem loopback tests vs the golden oracle.
 
-The TPU-side equivalent of the reference's qa_ofdm_txrx.py integration tests
+The JAX equivalent of the reference's qa_ofdm_txrx.py integration tests
 (SURVEY.md §4): full TX -> channel_model -> RX, assert recovered bytes ==
 sent bytes under AWGN/CFO/multipath, and TX output bit-matches the golden
 model (BASELINE.json correctness bound).
@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import pytest
 
 from golden import golden_ofdm as G
-from tpu_ofdm.config import OfdmConfig
-from tpu_ofdm.modem.rx import demod_frame, rx_block
-from tpu_ofdm.modem.tx import tx_frame, tx_frames
-from tpu_ofdm.ops.channel import channel_model
+from ofdm_jax.config import OfdmConfig
+from ofdm_jax.modem.rx import demod_frame, rx_block
+from ofdm_jax.modem.tx import tx_frame, tx_frames
+from ofdm_jax.ops.channel import channel_model
 
 PAYLOAD = b"The quick brown fox jumps over the lazy dog! 0123456789"
 

@@ -1,4 +1,4 @@
-"""Unit tests for tpu_ofdm.ops against the frozen golden model / numpy.
+"""Unit tests for ofdm_jax.ops against the frozen golden model / numpy.
 
 Mirrors the reference's per-block qa_*.py pattern (SURVEY.md §4): small
 vectors in, exact or tolerance asserts out.
@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import pytest
 
 from golden import golden_ofdm as G
-from tpu_ofdm.config import OfdmConfig
-from tpu_ofdm.ops import carrier_alloc, chanest, channel, crc, header, sync, transform
-from tpu_ofdm.ops.constellation import demap_hard, demap_soft, map_bits, points_np
-from tpu_ofdm.ops.equalizer import equalize_pilot_phase
-from tpu_ofdm.utils import bits as B
+from ofdm_jax.config import OfdmConfig
+from ofdm_jax.ops import carrier_alloc, chanest, channel, crc, header, sync, transform
+from ofdm_jax.ops.constellation import demap_hard, demap_soft, map_bits, points_np
+from ofdm_jax.ops.equalizer import equalize_pilot_phase
+from ofdm_jax.utils import bits as B
 
 
 @pytest.fixture(scope="module")
@@ -209,7 +209,7 @@ def test_channel_model_against_golden():
 def test_cyclic_prefix_rolloff():
     """Rolloff flanks: body + CP tail unchanged, flanks sum to unity with
     the previous symbol's cyclic tail, RX roundtrip unaffected."""
-    from tpu_ofdm.config import OfdmConfig
+    from ofdm_jax.config import OfdmConfig
 
     cfg = OfdmConfig(fft_len=64, cp_len=16, rolloff_len=4)
     sp = cfg.spec

@@ -4,8 +4,8 @@ of the reference's pmt C++ qa (SURVEY.md §4 "C++ qa ... pmt tests")."""
 import numpy as np
 import pytest
 
-from tpu_ofdm.io import pmt
-from tpu_ofdm.io.pdu import Pdu, UdpPduLink
+from ofdm_jax.io import pmt
+from ofdm_jax.io.pdu import Pdu, UdpPduLink
 
 
 CASES = [

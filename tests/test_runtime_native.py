@@ -11,7 +11,7 @@ import threading
 import numpy as np
 import pytest
 
-from tpu_ofdm import runtime
+from ofdm_jax import runtime
 
 
 def test_engine_reported():

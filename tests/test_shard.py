@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_ofdm.config import OfdmConfig
-from tpu_ofdm.modem import tx as txm
-from tpu_ofdm.modem.rx_stream import history_len
-from tpu_ofdm.shard import (
+from ofdm_jax.config import OfdmConfig
+from ofdm_jax.modem import tx as txm
+from ofdm_jax.modem.rx_stream import history_len
+from ofdm_jax.shard import (
     TIME_AXIS,
     collect_sharded_frames,
     extend_with_left_halo,
@@ -142,9 +142,9 @@ def test_sharded_stream_carry_across_chunks():
     """sharded_rx_stream_block: a frame straddling the boundary between two
     CHUNKS (not just two shards) is recovered exactly once -- shard 0 of
     chunk 1 demodulates it from the carried tail of chunk 0."""
-    from tpu_ofdm.modem.rx_stream import history_len
-    from tpu_ofdm.shard import collect_sharded_stream_frames, sharded_rx_stream_block
-    from tpu_ofdm.stream.executor import StreamExecutor
+    from ofdm_jax.modem.rx_stream import history_len
+    from ofdm_jax.shard import collect_sharded_stream_frames, sharded_rx_stream_block
+    from ofdm_jax.stream.executor import StreamExecutor
 
     cfg = OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk")
     spec = cfg.spec

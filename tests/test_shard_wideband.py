@@ -14,19 +14,19 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tpu_ofdm.config import OfdmConfig
-from tpu_ofdm.modem.rx_stream import history_len
-from tpu_ofdm.modem.tx import tx_frame
-from tpu_ofdm.shard.mesh import make_mesh
-from tpu_ofdm.shard.rx import (
+from ofdm_jax.config import OfdmConfig
+from ofdm_jax.modem.rx_stream import history_len
+from ofdm_jax.modem.tx import tx_frame
+from ofdm_jax.shard.mesh import make_mesh
+from ofdm_jax.shard.rx import (
     collect_sharded_frames,
     collect_sharded_stream_frames,
 )
-from tpu_ofdm.shard.wideband import (
+from ofdm_jax.shard.wideband import (
     sharded_wideband_capture_fn,
     sharded_wideband_stream_block,
 )
-from tpu_ofdm.spectrum.channelizer import lowpass_taps, synthesize_wideband
+from ofdm_jax.spectrum.channelizer import lowpass_taps, synthesize_wideband
 
 
 def _frame(spec, payload: bytes, fnum: int) -> np.ndarray:
@@ -99,17 +99,17 @@ def test_config5_512ch_sharded_wideband_exactly_once():
 def test_config5_512ch_streaming_checkpoint_restart(tmp_path):
     """Kill/restart the RESUMABLE streaming wideband RX mid-stream at 512
     channels (VERDICT r4 missing #1): the raw-sample channelizer carry and
-    the channel-domain demod carry round-trip through Orbax, and frames
+    the channel-domain demod carry round-trip through a checkpoint, and frames
     straddling a chunk boundary AND a time-shard ownership boundary are
     each recovered exactly once by the restarted executor.
 
     The carries are raw/channel-domain samples, not backend kernel state
-    (channelize_stream's contract), so a checkpoint taken on TPU resumes on
-    CPU bit-identically -- this test runs the CPU path on the virtual mesh.
+    (channelize_stream's contract), so a checkpoint taken on one backend
+    resumes on another -- this test runs the CPU path on the virtual mesh.
     """
-    from tpu_ofdm.stream.checkpoint import load_state, resume_step, save_state
-    from tpu_ofdm.stream.executor import StreamExecutor
-    from tpu_ofdm.utils.device_io import to_host
+    from ofdm_jax.stream.checkpoint import load_state, resume_step, save_state
+    from ofdm_jax.stream.executor import StreamExecutor
+    from ofdm_jax.utils.device_io import to_host
 
     cfg = OfdmConfig(fft_len=64, cp_len=16, modulation="qpsk",
                      max_payload_bytes=64)

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 from tests.golden import golden_ofdm as G
-from tpu_ofdm.spectrum import (
+from ofdm_jax.spectrum import (
     channelize,
     channelizer_block,
     log_pwr_fft,
@@ -17,7 +17,7 @@ from tpu_ofdm.spectrum import (
     spectrum_probe_block,
     waterfall_block,
 )
-from tpu_ofdm.stream.executor import StreamExecutor
+from ofdm_jax.stream.executor import StreamExecutor
 
 
 def _sig(n, seed=0, tones=((0.1, 1.0), (0.27, 0.3))):

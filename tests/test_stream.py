@@ -12,12 +12,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tpu_ofdm.config import OfdmConfig, StreamConfig
-from tpu_ofdm.modem.rx_stream import collect_frames, history_len, rx_stream_block
-from tpu_ofdm.modem.tx import tx_frames
-from tpu_ofdm.ops.channel import channel_model
-from tpu_ofdm.stream import block as blk
-from tpu_ofdm.stream.executor import StreamExecutor, pad_to_blocks, scan_blocks
+from ofdm_jax.config import OfdmConfig, StreamConfig
+from ofdm_jax.modem.rx_stream import collect_frames, history_len, rx_stream_block
+from ofdm_jax.modem.tx import tx_frames
+from ofdm_jax.ops.channel import channel_model
+from ofdm_jax.stream import block as blk
+from ofdm_jax.stream.executor import StreamExecutor, pad_to_blocks, scan_blocks
 
 
 # ---------------------------------------------------------------------------

@@ -9,12 +9,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from tpu_ofdm.config import OfdmConfig, StreamConfig
-from tpu_ofdm.modem.radio import ofdm_radio
-from tpu_ofdm.modem.rx_stream import collect_frames, history_len, rx_stream_block
-from tpu_ofdm.modem.tx_stream import empty_tx_in, queue_tx_in, tx_stream_block
-from tpu_ofdm.ops.channel import channel_model
-from tpu_ofdm.stream.executor import StreamExecutor
+from ofdm_jax.config import OfdmConfig, StreamConfig
+from ofdm_jax.modem.radio import ofdm_radio
+from ofdm_jax.modem.rx_stream import collect_frames, history_len, rx_stream_block
+from ofdm_jax.modem.tx_stream import empty_tx_in, queue_tx_in, tx_stream_block
+from ofdm_jax.ops.channel import channel_model
+from ofdm_jax.stream.executor import StreamExecutor
 
 
 def _run_tx(spec, sc, batches, n_steps):

@@ -3,11 +3,11 @@
 import jax
 import numpy as np
 
-from tpu_ofdm.config import OfdmConfig, StreamConfig
-from tpu_ofdm.modem.tx import tx_frames
-from tpu_ofdm.modem.wideband import collect_wideband_frames, wideband_rx_block
-from tpu_ofdm.spectrum.channelizer import lowpass_taps
-from tpu_ofdm.stream.executor import StreamExecutor
+from ofdm_jax.config import OfdmConfig, StreamConfig
+from ofdm_jax.modem.tx import tx_frames
+from ofdm_jax.modem.wideband import collect_wideband_frames, wideband_rx_block
+from ofdm_jax.spectrum.channelizer import lowpass_taps
+from ofdm_jax.stream.executor import StreamExecutor
 
 
 def _make_frame(cfg, payload, fnum):
